@@ -1,7 +1,8 @@
 # lapis-silo-tpu server image (parity with reference Dockerfile:36-49:
 # two-mode entrypoint, default configs baked in, /info healthcheck).
-# The TPU runtime is provided by the host (e.g. a TPU VM base image with
-# libtpu); off-TPU the engine runs on the CPU backend.
+# This image runs the engine on JAX's CPU backend; on a GPU host install
+# jax[cuda12] instead (the filter VM then builds native/silo_vm.cu with
+# nvcc on first use).
 FROM python:3.12-slim AS server
 
 WORKDIR /app
@@ -10,8 +11,7 @@ RUN apt-get update \
     && apt-get install -y --no-install-recommends curl jq zstd libzstd-dev g++ make \
     && rm -rf /var/lib/apt/lists/*
 
-# jax pinned by the host environment on TPU VMs; CPU fallback for plain hosts
-RUN pip install --no-cache-dir "jax[cpu]" numpy pyyaml
+RUN pip install --no-cache-dir "jax[cpu]" numpy
 
 COPY pyproject.toml ./
 COPY lapis_silo_tpu ./lapis_silo_tpu

@@ -28,7 +28,7 @@ run_flavor() {
     -v "$input_dir:/preprocessing/input:ro" \
     -v "$ppc:/app/ppc.yaml:ro" \
     -v "$WORK/${flavor}_out:/preprocessing/output" \
-    -e SILO_JAX_PLATFORM=cpu \
+    -e JAX_PLATFORMS=cpu \
     "$IMG" --preprocessing --preprocessingConfig /app/ppc.yaml \
     --databaseConfig /preprocessing/input/database_config.yaml
 
@@ -36,7 +36,7 @@ run_flavor() {
   docker rm -f silo-e2e >/dev/null 2>&1 || true
   docker run -d --name silo-e2e -p "$PORT:8081" \
     -v "$WORK/${flavor}_out:/data:ro" \
-    -e SILO_JAX_PLATFORM=cpu \
+    -e JAX_PLATFORMS=cpu \
     "$IMG" --api --dataDirectory /data
   SILO_REFERENCE_ROOT="$REF" python scripts/http_conformance.py \
     --url "http://localhost:$PORT" || {
@@ -80,7 +80,7 @@ if command -v npm >/dev/null 2>&1; then
   echo "=== reference JS e2e harness (npm test) ==="
   docker run -d --name silo-e2e -p "$PORT:8081" \
     -v "$WORK/tsv_out:/data:ro" \
-    -e SILO_JAX_PLATFORM=cpu \
+    -e JAX_PLATFORMS=cpu \
     "$IMG" --api --dataDirectory /data
   for _ in $(seq 60); do
     curl -sf "http://localhost:$PORT/info" >/dev/null && break

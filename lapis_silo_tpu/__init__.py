@@ -1,13 +1,14 @@
-"""LAPIS-SILO-TPU: a TPU-native sequence-indexing and query engine.
+"""A sequence-indexing and query engine on JAX for accelerators.
 
 A from-scratch reimplementation of the capabilities of GenSpectrum/LAPIS-SILO
-(reference: /root/reference) designed for TPU hardware:
+(reference: the LAPIS-SILO sources) designed for accelerator hardware:
 
 - The per-(position, symbol) Roaring bitmap index becomes dense packed-u32
-  bitplane tensors in HBM (``[rows, words]`` where bit ``i`` of word ``w``
+  bitplane tensors in device memory (``[rows, words]`` where bit ``i`` of word ``w``
   is sequence id ``w*32+i``).
 - The filter-expression tree compiles to a small IR of bitwise ops that is
-  evaluated as fused JAX/Pallas programs (AND/OR/NOT/THRESHOLD + popcount).
+  evaluated as one register-machine program per query or batch (a CUDA
+  kernel on the GPU, XLA on the CPU) with fused popcount reductions.
 - Partitions shard across a ``jax.sharding.Mesh``; queries broadcast; counts
   and per-position histograms merge via ``psum``-style collectives.
 

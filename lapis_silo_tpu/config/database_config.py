@@ -9,7 +9,7 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 
-import yaml
+from .yaml_subset import load_file as _load_yaml
 
 
 class ConfigError(Exception):
@@ -144,8 +144,7 @@ def parse_database_config(data: dict) -> DatabaseConfig:
 
 
 def read_database_config(path) -> DatabaseConfig:
-    with open(path) as f:
-        data = yaml.safe_load(f)
+    data = _load_yaml(path)
     if data is None:
         raise ConfigError(f"Empty database config: {path}")
     return parse_database_config(data)

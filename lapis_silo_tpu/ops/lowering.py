@@ -194,7 +194,7 @@ def _emit(engine, nodes: list, program: _Program, evaluators, dst: int) -> int:
 def _emit_threshold(engine, nodes: list, program: _Program, evaluators,
                     dst: int) -> int:
     """k-of-n as a bit-sliced counter circuit over word registers (the
-    TPU-native form of the reference's Threshold DP over bitmaps,
+    device form of the reference's Threshold DP over bitmaps,
     threshold.cpp:64-137): P = ceil(log2(max(n, k)+1)) counter planes
     live in reg[dst..dst+P-1]; each child's result increments the
     counter with a ripple-carry adder (2 ALU ops per plane); a

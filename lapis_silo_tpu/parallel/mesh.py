@@ -1,10 +1,10 @@
 """Multi-chip execution: shard the index over a jax.sharding.Mesh.
 
-The TPU-native generalization of the reference's single-node partition model
+The device generalization of the reference's single-node partition model
 (SURVEY §2.10): the *sequence-id axis* (the packed word axis W) shards across
 devices — every filter-VM op is word-local, so the program runs without any
 communication; only the final reductions (counts, per-position mutation
-histograms) cross chips, as XLA-inserted all-reduces over ICI.
+histograms) cross devices, as XLA-inserted all-reduces.
 
 This also covers the partition axis: partitions FOLD into the flat global
 word axis (partition p owns word slots [p*W, (p+1)*W)), words shard — so a

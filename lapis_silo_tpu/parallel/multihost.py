@@ -1,11 +1,11 @@
 """Multi-host serving: partition shards across hosts, query broadcast,
 collective-merged results.
 
-The reference is single-node; SURVEY §2.10/§5.8 defines the TPU-native
+The reference is single-node; SURVEY §2.10/§5.8 defines the multi-device
 generalization this module provides:
 
 - every host holds a subset of partitions (its local Database + DeviceEngine
-  over its own chips; within a host, words shard over ICI via parallel/mesh);
+  over its own devices; within a host, words shard via parallel/mesh);
 - the coordinator broadcasts the query JSON to all hosts (DCN control
   plane), each host executes its partitions and returns a *partial result*;
 - partials merge exactly like the reference merges per-partition results
@@ -117,8 +117,7 @@ def _mutations_partial(database, action, bitmaps) -> dict:
 # partial is a [symbols, positions] count matrix per segment (~16 x 30k
 # int64 for SARS-CoV-2 nuc — tens of MB as JSON text per worker per
 # query), and round-3 measurements put the coordinator's JSON parse+merge
-# of those tables at core-scale work (BENCHMARKS.md multi-host curve:
-# Mutations 48% at 2 workers). Matrices now travel as a raw binary frame —
+# of those tables at core-scale work. Matrices now travel as a raw binary frame —
 # a small JSON header plus concatenated little-endian array bytes — so the
 # coordinator merge is frombuffer + array sum, not JSON.
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ Parity with the reference's recursive-CTE partitioner
 - greedy left-to-right merge: extend the current group while its accumulated
   count is still <= allowed, else start a new group.
 
-On a TPU slice this is the shard-balancing step: partitions are the
+On a multi-device deployment this is the shard-balancing step: partitions are the
 data-parallel unit, so the 32-way cap maps to (a multiple of) the device
 count.
 """

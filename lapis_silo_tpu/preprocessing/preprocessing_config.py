@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-import yaml
+from ..config.yaml_subset import load_file as _load_yaml
 
 _DEFAULTS = {
     "inputDirectory": "./",
@@ -84,8 +84,7 @@ def _from_dict(data: dict) -> PreprocessingConfig:
 
 
 def read_preprocessing_config(path) -> PreprocessingConfig:
-    with open(path) as f:
-        data = yaml.safe_load(f) or {}
+    data = _load_yaml(path) or {}
     return _from_dict(data)
 
 
@@ -99,7 +98,6 @@ def read_layered(cli_path: str | None = None, cwd: str = ".") -> PreprocessingCo
         cli_path,
     ]:
         if candidate and os.path.exists(candidate):
-            with open(candidate) as f:
-                layer = yaml.safe_load(f) or {}
+            layer = _load_yaml(candidate) or {}
             data.update({k: v for k, v in layer.items() if v is not None})
     return _from_dict(data)

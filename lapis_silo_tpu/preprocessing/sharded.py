@@ -4,8 +4,7 @@ The reference's `buildDatabase` is internally TBB-parallel end-to-end
 (/root/reference/src/silo/preprocessing/preprocessor.cpp:447-503: metadata
 fill and per-partition sequence-store fills run under task groups); a
 single-process Python ingest is zstd-compression-bound instead (~40% of
-wall clock in the native scanner's worker threads, BENCHMARKS.md "NDJSON
-ingest scaling points"). This module splits the SEQUENCE work — the
+wall clock in the native scanner's worker threads). This module splits the SEQUENCE work — the
 dominant cost — across N worker processes:
 
 1. **Plan** (coordinator, in-process): one metadata-only scan (native

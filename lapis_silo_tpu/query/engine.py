@@ -2,8 +2,9 @@
 
 Parity with reference src/silo/query_engine/query_engine.cpp: parse the JSON
 query, compile the filter per partition, evaluate to packed bitsets, hand
-them to the action. On a TPU slice the per-partition loop becomes a
-broadcast over the device mesh (parallel/), with counts merged by psum.
+them to the action. On the device engine the per-partition loop becomes
+one program over the flat word axis (sharded over a mesh when several
+devices are present), with counts merged by psum.
 """
 
 from __future__ import annotations
@@ -61,29 +62,46 @@ class QueryEngine:
             use_device = os.environ.get("SILO_TPU_HOST_ONLY", "0") != "1"
         self._device_engine = None
         self._use_device = use_device
+        # queries a device path declined (ProgramTooLarge /
+        # StructureMismatch) and the host answered instead
+        self.host_fallbacks = 0
+
+    def _device(self):
+        """The DeviceEngine, built on first use. An empty database has no
+        device path (NotImplementedError): serving stays on the host."""
+        if self._device_engine is None:
+            from ..ops.device_engine import DeviceEngine
+
+            try:
+                self._device_engine = DeviceEngine(self.database)
+            except NotImplementedError:
+                self._use_device = False
+                return None
+            self.database.device_engine = self._device_engine
+        return self._device_engine
+
+    def _declined(self, ex: Exception) -> bool:
+        """True (and counted) when a device path declined this one query;
+        anything else propagates."""
+        from ..ops.device_engine import ProgramTooLarge, StructureMismatch
+
+        if isinstance(ex, (ProgramTooLarge, StructureMismatch)):
+            self.host_fallbacks += 1
+            return True
+        return False
 
     def _evaluate_filter(self, query: Query) -> list:
         """Compile + evaluate the filter per partition -> packed bitsets."""
         db = self.database
-        if self._use_device:
+        engine = self._device() if self._use_device else None
+        if engine is not None:
             try:
-                if self._device_engine is None:
-                    from ..ops.device_engine import DeviceEngine
-
-                    self._device_engine = DeviceEngine(db)
-                    db.device_engine = self._device_engine
                 # fused nonzero-word extraction: selective filters on large
                 # corpora transfer KBs instead of the whole [P, W] bitset
                 # (falls back internally when the result is wide)
-                return self._device_engine.evaluate_compact(query.filter)
-            except (ImportError, NotImplementedError):
-                self._use_device = False  # no device path for this database
+                return engine.evaluate_compact(query.filter)
             except Exception as ex:
-                from ..ops.device_engine import ProgramTooLarge, StructureMismatch
-
-                if isinstance(ex, (ProgramTooLarge, StructureMismatch)):
-                    pass  # host fallback for this query only
-                else:
+                if not self._declined(ex):
                     raise
         results = []
         for partition in db.partitions:
@@ -119,20 +137,13 @@ class QueryEngine:
 
         if not (self._use_device and isinstance(query.action, Mutations)):
             return None
-        try:
-            if self._device_engine is None:
-                from ..ops.device_engine import DeviceEngine
-
-                self._device_engine = DeviceEngine(self.database)
-                self.database.device_engine = self._device_engine
-            return self._device_engine.device_filter(query.filter)
-        except (ImportError, NotImplementedError):
-            self._use_device = False
+        engine = self._device()
+        if engine is None:
             return None
+        try:
+            return engine.device_filter(query.filter)
         except Exception as ex:
-            from ..ops.device_engine import ProgramTooLarge, StructureMismatch
-
-            if isinstance(ex, (ProgramTooLarge, StructureMismatch)):
+            if self._declined(ex):
                 return None
             raise
 
@@ -146,30 +157,23 @@ class QueryEngine:
         action = query.action
         if not (self._use_device and isinstance(action, Aggregated)):
             return None
+        engine = self._device()
+        if engine is None:
+            return None
         try:
-            if self._device_engine is None:
-                from ..ops.device_engine import DeviceEngine
-
-                self._device_engine = DeviceEngine(self.database)
-                self.database.device_engine = self._device_engine
             action.validate_order_by(self.database)
             if action.group_by_fields:
-                groups = self._device_engine.group_counts(
+                groups = engine.group_counts(
                     query.filter, action.group_by_fields
                 )
                 if groups is None:
                     return None  # unsupported column kinds: host path
                 rows = action.rows_from_group_counts(self.database, groups)
             else:
-                rows = [{"count": self._device_engine.count_coalesced(
+                rows = [{"count": engine.count_coalesced(
                     query.filter, key=query.filter_key)}]
-        except (ImportError, NotImplementedError):
-            self._use_device = False
-            return None
         except Exception as ex:
-            from ..ops.device_engine import ProgramTooLarge, StructureMismatch
-
-            if isinstance(ex, (ProgramTooLarge, StructureMismatch)):
+            if self._declined(ex):
                 return None
             raise
         if action.offset is not None and action.offset >= len(rows):

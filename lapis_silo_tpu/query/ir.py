@@ -4,7 +4,7 @@ The expression tree compiles (per partition) into this small algebra over
 packed-u32 bitsets. The IR has two interchangeable evaluators:
 
 - the host evaluator in this file (numpy; test oracle + small corpora)
-- the device evaluator in ops/device_engine.py (JAX/XLA/Pallas; the
+- the device evaluator in ops/device_engine.py (JAX/XLA and CUDA; the
   production path — same bit-level semantics, one fused program per query
   structure)
 

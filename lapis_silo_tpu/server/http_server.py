@@ -111,10 +111,13 @@ def _make(backend, port: int, reuse_port: bool = False):
         from .native_http import NativeHTTPServer, native_http_available
 
         if native_http_available():
+            logger.info("HTTP front-end: native epoll server "
+                        "(native/silo_http.cpp) on :%d", port)
             return NativeHTTPServer(backend, port=port, reuse_port=reuse_port)
         if impl == "native":
             logger.warning("native HTTP library unavailable; "
                            "falling back to the Python server")
+    logger.info("HTTP front-end: Python http.server on :%d", port)
     return _python_server(backend, port, reuse_port=reuse_port)
 
 

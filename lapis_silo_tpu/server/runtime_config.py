@@ -9,7 +9,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-import yaml
+from ..config.yaml_subset import load_file as _load_yaml
 
 DEFAULT_DATA_DIRECTORY = "./output/"
 
@@ -23,8 +23,7 @@ class RuntimeConfig:
     def read(cls, path: str | None) -> "RuntimeConfig":
         config = cls()
         if path and os.path.exists(path):
-            with open(path) as f:
-                data = yaml.safe_load(f) or {}
+            data = _load_yaml(path) or {}
             if data.get("dataDirectory"):
                 config.data_directory = data["dataDirectory"]
             if data.get("port"):

@@ -58,7 +58,7 @@ class DatabaseDirectoryWatcher:
     @staticmethod
     def _warmup(database):
         """Compile the common filter-VM executables BEFORE the snapshot goes
-        live (XLA compiles can take minutes on remote-compile TPU setups;
+        live (large executables take seconds to minutes to compile;
         queries served meanwhile keep hitting the old database)."""
         import json
         import time

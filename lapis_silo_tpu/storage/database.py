@@ -221,10 +221,13 @@ class Database:
         }
 
     def tpu_info(self) -> dict:
-        """/info?tpu=true — the TPU-native observability surface (SURVEY
-        §5.5): actual dense-analog HBM bytes per segment and partition
-        layout, i.e. what the device banks cost, as opposed to the
-        reference-compatible Roaring-model numbers in info()."""
+        """/info?tpu=true — the device observability surface (SURVEY
+        §5.5): actual dense-analog bytes per segment and partition layout,
+        i.e. what the device banks cost, as opposed to the
+        reference-compatible Roaring-model numbers in info(). Once the
+        device engine exists it adds its platform, tiering and pool
+        counters, and the count of queries the host answered because a
+        device path declined them."""
         segments = {}
         for partition in self.partitions:
             for name, seg in list(partition.nuc_sequences.items()) + list(
@@ -237,8 +240,14 @@ class Database:
                 entry["denseSizeBytes"] += seg.size_in_bytes()
                 entry["compactSizeBytes"] += seg.store.nbytes()
                 entry["storedRows"] += int(len(seg.sym_ids))
-        return {
+        out = {
             "sequenceCount": sum(p.sequence_count for p in self.partitions),
             "partitions": len(self.partitions),
             "segments": segments,
         }
+        engine = getattr(self, "device_engine", None)
+        if engine is not None:
+            out["deviceEngine"] = engine.stats()
+        if self._engine is not None:
+            out["hostFallbacks"] = self._engine.host_fallbacks
+        return out

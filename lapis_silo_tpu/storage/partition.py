@@ -2,7 +2,7 @@
 
 Parity with reference src/silo/storage/database_partition.cpp — one
 partition holds row-aligned typed columns, per-segment bitplane indexes, and
-its sequence count. Partitions are the data-parallel axis: on a TPU slice
+its sequence count. Partitions are the data-parallel axis: on a multi-host deployment
 each host/device holds a subset of partitions and queries broadcast.
 """
 

@@ -2,7 +2,7 @@
 
 This replaces the reference's per-position Roaring bitmap maps
 (src/silo/storage/sequence_store.cpp, src/silo/storage/position.cpp) with a
-TPU-native *compact row* layout — the host-side twin of the device bank in
+device-oriented *compact row* layout — the host-side twin of the device bank in
 ops/device_engine.py:
 
 - Logically the index is dense ``[S, L, W]``: S = alphabet size, L =

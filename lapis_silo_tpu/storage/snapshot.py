@@ -1,6 +1,6 @@
 """Versioned snapshot persistence: flat arrays + JSON manifest.
 
-The TPU-native replacement for the reference's boost-archive snapshots
+The replacement for the reference's boost-archive snapshots
 (src/silo/database.cpp:369-601): a directory ``<out>/<unix-ts>/`` holding
 
 - ``manifest.json``        config, alias table, reference genomes, layout

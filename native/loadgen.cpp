@@ -5,8 +5,7 @@
 // (the reference world benches its Poco server with external tools the
 // same way). One epoll loop drives N keep-alive connections, each with one
 // in-flight POST; bodies rotate per-connection through a body file
-// (distinct inputs — the relay memoizes identical executions, see
-// BENCHMARKS.md) and latencies are recorded per response.
+// and latencies are recorded per response.
 //
 // Usage: loadgen <host> <port> <path> <bodies.txt> <connections> <seconds>
 // bodies.txt: one request body per line.

@@ -2,7 +2,7 @@
 //
 // The reference's API layer is native (Poco HTTPServer,
 // reference src/silo_api/api.cpp:174-204, request_handler_factory.cpp);
-// this is the TPU-repo equivalent: a small epoll server that owns every
+// this is the equivalent here: a small epoll server that owns every
 // socket byte — accept, parse, keep-alive, response framing — and calls a
 // registered handler (the Python router, via ctypes) only for the actual
 // routing + query work. The Python front-end measured ~437 req/s on two

@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices; jax.distributed joins them into
 one global mesh. The filter-VM step runs with the packed word axis sharded
 across ALL devices (both processes) — the same program a real multi-host
-TPU pod runs, with XLA collectives crossing the (here: in-memory) DCN.
+multi-host deployment runs, with XLA collectives crossing the (here: in-memory) DCN.
 
 Usage: python distributed_worker.py <port> <num_processes> <process_id>
 """
@@ -19,7 +19,6 @@ os.environ["XLA_FLAGS"] = (
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(
     coordinator_address=f"127.0.0.1:{port}",
     num_processes=num_processes,

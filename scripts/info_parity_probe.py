@@ -5,9 +5,6 @@ import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

@@ -1,5 +1,5 @@
 """Large-scale parity harness: device engine vs host oracle at >=1M rows,
-all action types, one command (VERDICT round 1 item 5).
+all action types, one command.
 
 Builds two independent rich synthetic corpora from one seed (the oracle
 database never sees a device engine), runs randomized (filter x action)
@@ -91,9 +91,7 @@ def run(n_rows: int, n_queries: int, seed: int) -> dict:
 
 def main():
     if os.environ.get("SILO_PARITY_CPU", "0") == "1":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+        os.environ["JAX_PLATFORMS"] = "cpu"
     n_rows = int(os.environ.get("SILO_PARITY_ROWS", 1_048_576))
     n_queries = int(os.environ.get("SILO_PARITY_QUERIES", 60))
     seed = int(os.environ.get("SILO_PARITY_SEED", 5))

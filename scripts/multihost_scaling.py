@@ -1,10 +1,10 @@
 """Multi-host scaling demo: the same corpus served by 1 vs N worker
-processes; Mutations queries (CPU/HBM-bound per host) should speed up
+processes; Mutations queries (CPU/memory-bound per host) should speed up
 ~linearly because each host reduces only its own partitions.
 
   python scripts/multihost_scaling.py [total_rows] [length] [n_hosts]
 
-Runs on the CPU backend (real process parallelism; on a TPU pod the same
+Runs on the CPU backend (real process parallelism; on a multi-host deployment the same
 split runs per-host device reductions).
 
 NOTE: on this dev box (2 cores, XLA-CPU already multithreaded) no speedup is
@@ -26,8 +26,6 @@ import os, sys
 if {cpu!r} != "":
     os.sched_setaffinity(0, {{int({cpu!r})}})
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
 from lapis_silo_tpu.testing import synthetic_database
 from lapis_silo_tpu.parallel.multihost import start_worker
@@ -45,8 +43,6 @@ threading.Event().wait()
 SYNTH_WORKER_SNIPPET = """
 import os, sys
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
 from lapis_silo_tpu.testing import synthetic_database
 from lapis_silo_tpu.parallel import multihost as mh
@@ -101,7 +97,7 @@ def _worker_cpu_seconds(procs):
 
 
 def synthetic_mode():
-    """Coordinator-overhead ISOLATION (round 5, VERDICT r4 item 5): N
+    """Coordinator-overhead ISOLATION: N
     synthetic workers serve pre-canned partial bytes (zero compute), so a
     timed query contains ONLY the coordinator's fan-out + merge work. A
     separate REAL worker with a curve-scale shard provides the
@@ -111,9 +107,6 @@ def synthetic_mode():
     their own cores) the control plane cannot cap scaling."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from lapis_silo_tpu.parallel import multihost as mh
     from lapis_silo_tpu.parallel.multihost import Coordinator
     from lapis_silo_tpu.testing import synthetic_database
@@ -245,9 +238,6 @@ def overhead_mode():
     per-worker overhead from the slope."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from lapis_silo_tpu.parallel.multihost import Coordinator
     from lapis_silo_tpu.testing import synthetic_database
 
@@ -318,9 +308,6 @@ def curve_mode():
     --overhead) bounds the asymptote."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from lapis_silo_tpu.parallel.multihost import Coordinator
     from lapis_silo_tpu.testing import synthetic_database
 
@@ -449,9 +436,6 @@ def main():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from lapis_silo_tpu.parallel.multihost import Coordinator
     from lapis_silo_tpu.testing import synthetic_database
 

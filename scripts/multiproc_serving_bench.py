@@ -2,10 +2,11 @@
 
 Launches the REAL cli --api stack (native epoll front-end + watcher +
 snapshot load) with N server processes sharing one port, and hammers
-/query with concurrent count queries. Runs on the CPU backend by default
-(SILO_JAX_PLATFORM=cpu): the thing --apiProcesses scales is the
-per-request Python (JSON parse + route + result assembly) under the GIL,
-which is backend-independent — see BENCHMARKS.md.
+/query with concurrent count queries. Runs on the CPU backend
+(JAX_PLATFORMS=cpu): the thing --apiProcesses scales is the per-request
+Python (JSON parse + route + result assembly) under the GIL. On a GPU
+the CLI refuses N > 1 — every process would reserve most of the card's
+memory — so this benchmark is CPU-only.
 
 Env knobs: SILO_BENCH_CLIENTS (64), SILO_BENCH_SECONDS (8),
 SILO_BENCH_PORT (18231), SILO_BENCH_PROCS ("1,2").
@@ -32,7 +33,7 @@ def log(*args):
 
 
 def build_snapshot(work: str) -> str:
-    import yaml
+    from lapis_silo_tpu.config.yaml_subset import dump_mapping
 
     out = os.path.join(work, "output")
     pcfg = {
@@ -44,8 +45,8 @@ def build_snapshot(work: str) -> str:
     }
     pcfg_path = os.path.join(work, "preprocessing_config.yaml")
     with open(pcfg_path, "w") as f:
-        yaml.safe_dump(pcfg, f)
-    env = dict(os.environ, SILO_JAX_PLATFORM=os.environ.get("SILO_JAX_PLATFORM", "cpu"))
+        f.write(dump_mapping(pcfg))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run(
         [sys.executable, "-m", "lapis_silo_tpu.cli", "--preprocessing",
          "--preprocessingConfig", pcfg_path,
@@ -145,8 +146,7 @@ def hammer(port: int, n_clients: int, seconds: float):
 
 def run_config(data_dir: str, port: int, n_procs: int,
                n_clients: int, seconds: float):
-    env = dict(os.environ,
-               SILO_JAX_PLATFORM=os.environ.get("SILO_JAX_PLATFORM", "cpu"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-m", "lapis_silo_tpu.cli", "--api",
          "--dataDirectory", data_dir, "--port", str(port),

@@ -1,5 +1,5 @@
 """Device determinism: the same query twice returns identical bits (the
-TPU-side replacement for the reference's data-race tooling, SURVEY §5.2)."""
+The replacement here for the reference's data-race tooling, SURVEY §5.2)."""
 
 import json
 

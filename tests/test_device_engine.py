@@ -75,48 +75,6 @@ def test_device_matches_host(example_dataset_db, filter_json):
         np.testing.assert_array_equal(words, host_words, err_msg=str(filter_json))
 
 
-def test_bank3_engine_matches_host(example_dataset_db, monkeypatch):
-    """SILO_FORCE_BANK3: the at-rest 3-D bank layout (what TPU serving uses
-    to avoid in-executable bank relayout copies) through the engine-level
-    paths — counts, filter words, and the Mutations reduction — against the
-    2-D engine."""
-    from lapis_silo_tpu.ops.device_engine import DeviceEngine
-    from lapis_silo_tpu.query.engine import Query
-
-    import jax
-
-    db = example_dataset_db
-    one = jax.devices()[:1]
-    flat = DeviceEngine(db, devices=one)
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
-    engine = DeviceEngine(db, devices=one)
-    assert engine.bank3 and engine.bank.ndim == 3
-    assert np.array_equal(
-        np.asarray(engine.bank).reshape(engine.n_rows, -1)[:, :flat.n_flat_words],
-        np.asarray(flat.bank),
-    ) or engine.n_flat_words != flat.n_flat_words  # 128-padding may differ
-
-    for filter_json in REPRESENTATIVE:
-        query = Query(json.dumps({"filterExpression": filter_json,
-                                  "action": {"type": "Aggregated"}}))
-        got = engine.count_batch([query.filter])
-        want = flat.count_batch([query.filter])
-        assert got == want, filter_json
-        got_words = engine.evaluate(query.filter)
-        want_words = flat.evaluate(query.filter)
-        for g, w in zip(got_words, want_words):
-            np.testing.assert_array_equal(g, w, err_msg=str(filter_json))
-
-    sel = Query(json.dumps({
-        "filterExpression": {"type": "NucleotideEquals", "position": 25,
-                             "symbol": "T"},
-        "action": {"type": "Aggregated"}}))
-    for kind, name in [("nuc", "main"), ("aa", "E")]:
-        got_m = engine.mutation_counts(kind, name, engine.evaluate(sel.filter))
-        want_m = flat.mutation_counts(kind, name, flat.evaluate(sel.filter))
-        np.testing.assert_array_equal(got_m, want_m, err_msg=f"{kind}:{name}")
-
-
 def test_host_count_fast_paths(example_dataset_db):
     """host_count answers single-leaf and metadata-only counts without a
     dispatch, bit-identical to the device/oracle path."""

@@ -1,7 +1,6 @@
 """Exhaustive (expression type x action type) cross-product: every one of
 the 21 query-expression types appears under every action kind at least once
-per run, device engine vs host oracle (VERDICT round 1 item 10: "covering
-every expression x action combination at least once per run")."""
+per run, device engine vs host oracle."""
 
 import json
 import random

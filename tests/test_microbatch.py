@@ -155,7 +155,7 @@ def test_batch_split_fuzz(example_dataset_db, monkeypatch):
 def test_wide_batch_single_dispatch_counts_exact():
     """A MAX_BATCH_QUERIES-wide batch (4096 queries, 65536-instruction
     bucket) packs into the expected dispatch count and returns counts
-    identical to narrow batches — the relay-amortizing tier the bench and
+    identical to narrow batches — the wide-dispatch tier the bench and
     batched callers ride."""
     import jax
 

@@ -3,7 +3,7 @@ host stages new snapshot versions locally; the FlipController commits the
 slice to a new version only when ALL hosts have it, so queries never mix
 versions. A restarted/failed host re-stages and is re-committed (failed-host
 re-load). The reference is single-node and has no analog — this is the
-TPU-pod generalization of database_directory_watcher.cpp's hot reload."""
+Multi-host generalization of database_directory_watcher.cpp's hot reload."""
 
 import json
 

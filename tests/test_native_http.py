@@ -251,7 +251,7 @@ def test_reuse_port_two_servers(database):
 
         return router
 
-    # ports 80xx-81xx belong to the relay; probe a high port with REUSEPORT
+    # probe a high port with REUSEPORT
     # set so the pair can bind it afterwards
     probe = socket.socket()
     probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)

@@ -1,529 +1,486 @@
-"""Pallas popcount kernel vs numpy, interpret mode (CPU)."""
+"""Device kernels and the plain XLA forms they are checked against (CPU).
 
+The VM kernel itself is CUDA (native/silo_vm.cu) and runs only on the
+card (`gpu` marker); here its wrapper runs with the kernel's jnp
+reference (vm_kernel.reference_call) in place of the FFI call.
+"""
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 
-def test_popcount_rows_matches_numpy():
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(0)
-    rows = rng.integers(0, 2**32, size=(pk.ROW_BLOCK * 2, pk.WORD_BLOCK),
-                        dtype=np.uint32)
-    filt = rng.integers(0, 2**32, size=pk.WORD_BLOCK, dtype=np.uint32)
-    got = np.asarray(pk.popcount_rows_and_filter(rows, filt, True))
-    want = np.bitwise_count(rows & filt[None, :]).sum(axis=1).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("use_csa", [False, True])
-def test_mutation_counts_banked_matches_numpy(use_csa):
-    """Banked kernel (naive and Harley-Seal CSA forms) vs numpy, over a
-    flat global-word bank with a non-zero row offset and a multi-block word
-    axis (so the CSA accumulators carry across grid steps)."""
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(1)
-    row_block, word_block = 8, 2048
-    n_rows, n_words = 4 * row_block, 3 * word_block
-    bank = rng.integers(0, 2**32, size=(n_rows, n_words), dtype=np.uint32)
-    filters = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
-    start, n_seg = row_block, 2 * row_block
-    got = np.asarray(pk.mutation_counts_banked(
-        bank, filters, start, n_seg, n_words, row_block, word_block,
-        use_csa, True,
-    ))
-    want = (
-        np.bitwise_count(bank[start:start + n_seg] & filters[None, :])
-        .sum(axis=1).astype(np.int32)
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_mutation_counts_banked_bucketed_rows():
-    """seg_row_bucket may exceed the segment (and even the bank): clamped
-    row blocks land in sliced-off output rows, the real rows stay exact."""
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(3)
-    row_block = 8
-    n_rows, n_words = 3 * row_block, 256
-    bank = rng.integers(0, 2**32, size=(n_rows, n_words), dtype=np.uint32)
-    filters = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
-    start, n_stored = row_block, 2 * row_block  # bucket == 2 blocks past end
-    bucket = 4 * row_block
-    got = np.asarray(pk.mutation_counts_banked(
-        bank, filters, start, bucket, n_words, row_block, 128, False, True,
-    ))[:n_stored]
-    want = (
-        np.bitwise_count(bank[start:start + n_stored] & filters[None, :])
-        .sum(axis=1).astype(np.int32)
-    )
-    np.testing.assert_array_equal(got, want)
-    assert pk.seg_row_bucket(100) == 256
-    assert pk.seg_row_bucket(5000) == 5120  # large segments stay exact
-
-
-def test_sparse_filter_popcount_matches_numpy():
-    """Mosaic dynamic-gather sparse kernel vs numpy: a multi-chunk GLOBAL
-    entry stream (sorted word indices, so each [8,128] slab spans a narrow
-    hi band — the kernel computes slab bounds in-kernel) with zero-padded
-    tails (which make the last slabs span the FULL hi range — the
-    unsorted-slab worst case is exercised too)."""
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(7)
-    n_words = 3 * 1024
-    e = 2 * pk.SPARSE_CHUNK
-    filters = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
-    sp_idx = np.sort(rng.integers(0, n_words, size=e)).astype(np.int32)
-    sp_words = rng.integers(0, 2**32, size=e, dtype=np.uint32)
-    sp_idx[-100:] = 0
-    sp_words[-100:] = 0
-    got = np.asarray(pk.sparse_filter_popcount(
-        filters, pk.combine_stream(sp_idx, sp_words), interpret=True))
-    want = np.bitwise_count(sp_words & filters[sp_idx]).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pad_to_blocks():
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    rows = np.ones((10, 5), dtype=np.uint32)
-    padded = pk.pad_to_blocks(rows)
-    assert padded.shape == (pk.ROW_BLOCK, pk.WORD_BLOCK)
-    assert padded[:10, :5].all() and padded.sum() == 50
-
-
-def test_vm_kernel_matches_xla_interpreter():
-    """The Mosaic filter-VM kernel vs the XLA while_loop interpreter on a
-    random program exercising every b-source, every ALU mode, threshold
-    circuits, EMIT_COUNT, and the padded NOP tail — single- and multi-block
-    word axes."""
-    import jax.numpy as jnp
-
+def _random_program(rng, n_rows, n_dyn, n_k, n_regs, n_alu, emit_p):
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(5)
-    n_rows, n_dyn, n_k, n_regs = 24, 3, 5, 8
-    pw = 16 * 128
-    bucket = 64
+    ops, opers, specs = [], [], []
+
+    def emit(op, operand, dst, ra=0, rb=0, mode=0, bsrc=de.B_REG):
+        ops.append(op)
+        opers.append(operand)
+        specs.append(dst | (ra << 8) | (rb << 16) | (mode << 24)
+                     | (bsrc << 28))
+
+    qi = 0
+    for _ in range(n_alu):
+        bsrc = int(rng.integers(0, 6))
+        hi = {de.B_BANK: n_rows, de.B_DYN: n_dyn, de.B_SPARSE: n_k}.get(bsrc, 1)
+        emit(de.ALU, int(rng.integers(0, hi)), int(rng.integers(0, n_regs)),
+             int(rng.integers(0, n_regs)), int(rng.integers(0, n_regs)),
+             int(rng.integers(0, 5)), bsrc)
+        if rng.random() < emit_p:
+            emit(de.EMIT_COUNT, qi, de.NO_DST)
+            qi += 1
+    return ops, opers, specs, qi
+
+
+def _vm_inputs(seed, pw, n_rows=24, n_dyn=3, n_k=5):
+    rng = np.random.default_rng(seed)
     bank = rng.integers(0, 1 << 32, size=(n_rows, pw), dtype=np.uint32)
     dyn = rng.integers(0, 1 << 32, size=(n_dyn, pw), dtype=np.uint32)
     sparse = rng.integers(0, 1 << 32, size=(n_k, pw), dtype=np.uint32)
     full = np.full(pw, 0xFFFFFFFF, dtype=np.uint32)
     full[-40:] = 0x7  # ragged tail like a real partition mask
+    return rng, bank, dyn, sparse, full
 
-    ops, opers, specs = [], [], []
 
-    def emit(op, operand, dst, ra=0, rb=0, mode=0, bsrc=de.B_REG):
-        ops.append(op)
-        opers.append(operand)
-        specs.append(dst | (ra << 8) | (rb << 16) | (mode << 24)
-                     | (bsrc << 28))
+@pytest.mark.parametrize("pw,split", [(2048, False), (2048, True),
+                                      (2052, True), (516, True)])
+def test_vm_kernel_matches_xla_interpreter(vm_kernel_reference, pw, split):
+    """The VM kernel's wrapper (query-boundary chunks, word tiles that do
+    not divide the axis) vs the XLA while_loop interpreter. Unsplit runs
+    take a random program exercising every b-source, ALU mode, EMIT_COUNT
+    and the padded NOP tail. Split runs take programs built like lowered
+    queries (each writes a register before reading it), the condition
+    under which chunks may start from zeroed registers."""
+    from lapis_silo_tpu.ops import device_engine as de
 
-    qi = 0
-    for _ in range(12):
-        bsrc = int(rng.integers(0, 6))
-        hi = {de.B_BANK: n_rows, de.B_DYN: n_dyn, de.B_SPARSE: n_k}.get(bsrc, 1)
-        emit(de.ALU, int(rng.integers(0, hi)), int(rng.integers(0, n_regs)),
-             int(rng.integers(0, n_regs)), int(rng.integers(0, n_regs)),
-             int(rng.integers(0, 5)), bsrc)
-        if rng.random() < 0.4:
-            emit(de.EMIT_COUNT, qi, de.NO_DST)
+    rng, bank, dyn, sparse, full = _vm_inputs(5, pw)
+    n_rows, n_dyn, n_k, n_regs = bank.shape[0], dyn.shape[0], 5, 8
+    bucket = 64
+    if split:
+        # every query: r0 = source; r0 = r0 op source; emit
+        ops, opers, specs, qi = [], [], [], 0
+        for q in range(9):
+            for step in range(1 + q % 3):
+                bsrc = int(rng.integers(1, 6))
+                hi = {de.B_BANK: n_rows, de.B_DYN: n_dyn,
+                      de.B_SPARSE: n_k}.get(bsrc, 1)
+                mode = de.M_MOVB if step == 0 else int(rng.integers(1, 5))
+                ops.append(de.ALU)
+                opers.append(int(rng.integers(0, hi)))
+                specs.append((mode << 24) | (bsrc << 28))
+            ops.append(de.EMIT_COUNT)
+            opers.append(q)
+            specs.append(de.NO_DST)
             qi += 1
-    n_instr = len(ops)
+    else:
+        ops, opers, specs, qi = _random_program(rng, n_rows, n_dyn, n_k,
+                                                n_regs, 12, 0.4)
     code = de.pack_code_array(bucket, ops, opers, specs)
-
-    run_xla = de._interpreter(bucket, n_rows, n_dyn, 0, pw, "multi_count",
-                              n_regs=n_regs)
-    want_words_flat = de._interpreter(bucket, n_rows, n_dyn, 0, pw, "words",
-                                      n_regs=n_regs)
-    blob = np.append(code.reshape(-1),
-                     np.int32(de._round_instr(n_instr)))
+    blob = np.append(code.reshape(-1), np.int32(de._round_instr(len(ops))))
     args = (jnp.asarray(blob), jnp.asarray(bank), jnp.asarray(dyn),
             jnp.asarray(sparse), jnp.asarray(full))
-    want_counts = np.asarray(run_xla(*args))
-    want_words = np.asarray(want_words_flat(*args))
 
-    got_words, got_counts = pk.vm_run(
-        jnp.asarray(code[0]), jnp.asarray(code[1]),
-        jnp.asarray([de._round_instr(n_instr)], dtype=np.int32),
-        jnp.asarray(bank), jnp.asarray(dyn), jnp.asarray(sparse),
-        jnp.asarray(full), n_regs=n_regs, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_words), want_words)
-    np.testing.assert_array_equal(np.asarray(got_counts)[:qi],
-                                  want_counts[:qi])
-
-    # multi-block: force a tiny VMEM cap so the word axis splits; results
-    # (including cross-block EMIT accumulation) must be identical
-    cap = (n_regs + 3) * 128 * 4 * 4  # 4 hi-rows per block
-    assert pk._vm_block_hi(pw // 128, n_regs, cap) < pw // 128
-    got_words_mb, got_counts_mb = pk.vm_run(
-        jnp.asarray(code[0]), jnp.asarray(code[1]),
-        jnp.asarray([de._round_instr(n_instr)], dtype=np.int32),
-        jnp.asarray(bank), jnp.asarray(dyn), jnp.asarray(sparse),
-        jnp.asarray(full), n_regs=n_regs, interpret=True,
-        vmem_cap_bytes=cap)
-    np.testing.assert_array_equal(np.asarray(got_words_mb), want_words)
-    np.testing.assert_array_equal(np.asarray(got_counts_mb)[:qi],
-                                  want_counts[:qi])
-
-def test_vm_kernel_accepts_bank3():
-    """vm_run with the bank pre-shaped [R, PW/128, 128] (the at-rest layout
-    bank3 engines use to avoid the in-executable relayout copy) must match
-    the 2-D form bit for bit."""
-    import jax.numpy as jnp
-
-    from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(11)
-    n_rows, n_dyn, n_regs = 16, 2, 8
-    pw = 8 * 128
-    bucket = 16
-    bank = rng.integers(0, 1 << 32, size=(n_rows, pw), dtype=np.uint32)
-    dyn = rng.integers(0, 1 << 32, size=(n_dyn, pw), dtype=np.uint32)
-    sparse = np.zeros((1, pw), dtype=np.uint32)
-    full = np.full(pw, 0xFFFFFFFF, dtype=np.uint32)
-
-    # r1 = bank[3]; r1 &= dyn[1]; r0 = NOT r1 (vs full); emit
-    code = de.pack_code_array(
-        bucket,
-        [de.ALU, de.ALU, de.ALU, de.EMIT_COUNT],
-        [3, 1, 0, 0],
-        [1 | (de.M_MOVB << 24) | (de.B_BANK << 28),
-         1 | (1 << 8) | (de.M_AND << 24) | (de.B_DYN << 28),
-         0 | (1 << 8) | (de.M_ANDN << 24) | (de.B_FULL << 28),
-         de.NO_DST])
-    n_instr = de._round_instr(4)
-
-    args_tail = (jnp.asarray(dyn), jnp.asarray(sparse), jnp.asarray(full))
-    got2_w, got2_c = pk.vm_run(
-        jnp.asarray(code[0]), jnp.asarray(code[1]),
-        jnp.asarray([n_instr], dtype=np.int32), jnp.asarray(bank),
-        *args_tail, n_regs=n_regs, interpret=True)
-    got3_w, got3_c = pk.vm_run(
-        jnp.asarray(code[0]), jnp.asarray(code[1]),
-        jnp.asarray([n_instr], dtype=np.int32),
-        jnp.asarray(bank.reshape(n_rows, pw // 128, 128)),
-        *args_tail, n_regs=n_regs, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got2_w), np.asarray(got3_w))
-    np.testing.assert_array_equal(np.asarray(got2_c), np.asarray(got3_c))
-
-
-def test_mutation_counts_banked_bank3():
-    """The 3-D (bank3) Mutations kernel path vs numpy, with a non-dividing
-    word-block and a dynamic start offset."""
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(13)
-    row_block = 8
-    n_rows, n_words = 4 * row_block, 24 * 128  # n_hi=24 (not a WORD_BLOCK/128 multiple)
-    bank = rng.integers(0, 2**32, size=(n_rows, n_words), dtype=np.uint32)
-    filters = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
-    start, n_seg = 2 * row_block, 2 * row_block
-    got = np.asarray(pk.mutation_counts_banked(
-        bank.reshape(n_rows, n_words // 128, 128), filters, start, n_seg,
-        n_words, row_block, None, False, True,
-    ))
-    want = (
-        np.bitwise_count(bank[start:start + n_seg] & filters[None, :])
-        .sum(axis=1).astype(np.int32)
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_vm_run_sharded_matches_single_device():
-    """vm_run under shard_map over the 8-device CPU mesh (interpret mode):
-    word-sharded bank/dyn/sparse/full, psum-merged EMIT counts — must be
-    bit-identical to the single-shard kernel and the XLA interpreter."""
-    import jax
-    import jax.numpy as jnp
-
-    from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-    from lapis_silo_tpu.parallel.mesh import make_mesh
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    if len(jax.devices()) < 2:
-        pytest.skip("needs the virtual multi-device mesh")
-    mesh = make_mesh()
-    n_dev = mesh.devices.size
-    rng = np.random.default_rng(11)
-    n_rows, n_dyn, n_k, n_regs = 12, 2, 3, 8
-    pw = n_dev * 2 * 128  # whole 128-lane rows per shard
-    bucket = 64
-    bank = rng.integers(0, 1 << 32, size=(n_rows, pw), dtype=np.uint32)
-    dyn = rng.integers(0, 1 << 32, size=(n_dyn, pw), dtype=np.uint32)
-    sparse = rng.integers(0, 1 << 32, size=(n_k, pw), dtype=np.uint32)
-    full = np.full(pw, 0xFFFFFFFF, dtype=np.uint32)
-    full[-40:] = 0x7
-
-    ops, opers, specs = [], [], []
-
-    def emit(op, operand, dst, ra=0, rb=0, mode=0, bsrc=de.B_REG):
-        ops.append(op)
-        opers.append(operand)
-        specs.append(dst | (ra << 8) | (rb << 16) | (mode << 24)
-                     | (bsrc << 28))
-
-    qi = 0
-    for _ in range(10):
-        bsrc = int(rng.integers(0, 6))
-        hi = {de.B_BANK: n_rows, de.B_DYN: n_dyn, de.B_SPARSE: n_k}.get(bsrc, 1)
-        emit(de.ALU, int(rng.integers(0, hi)), int(rng.integers(0, n_regs)),
-             int(rng.integers(0, n_regs)), int(rng.integers(0, n_regs)),
-             int(rng.integers(0, 5)), bsrc)
-        if rng.random() < 0.5:
-            emit(de.EMIT_COUNT, qi, de.NO_DST)
-            qi += 1
-    code = de.pack_code_array(bucket, ops, opers, specs)
-    ni = jnp.asarray([de._round_instr(len(ops))], dtype=np.int32)
-
-    want_words, want_counts = pk.vm_run(
-        jnp.asarray(code[0]), jnp.asarray(code[1]),
-        ni, jnp.asarray(bank), jnp.asarray(dyn), jnp.asarray(sparse),
-        jnp.asarray(full), n_regs=n_regs, interpret=True)
-
-    bank3 = jnp.asarray(bank.reshape(n_rows, pw // 128, 128))
-    got_words, got_counts = pk.vm_run_sharded(
-        mesh, "seq", jnp.asarray(code[0]), jnp.asarray(code[1]),
-        ni, bank3, jnp.asarray(dyn),
-        jnp.asarray(sparse), jnp.asarray(full), n_regs=n_regs,
-        interpret=True)
+    ref = vm_kernel_reference
+    n_instr = jnp.int32(de._round_instr(len(ops)))
+    got_words, got_counts = ref.vm_run(
+        jnp.asarray(code), n_instr, *args[1:], n_regs=n_regs, split=split)
+    if split:
+        assert ref.n_chunks_for(pw) > 1
+    # the XLA interpreter (vm_path() is patched to the kernel route, so
+    # build the plain body directly)
+    run = de.build_run_one_with_emit(bucket, n_rows, n_dyn, pw,
+                                     n_sparse_k=n_k, n_regs=n_regs)
+    want_words, want_counts = jax.jit(run)(jnp.asarray(code), *args[1:],
+                                           n_instr)
     np.testing.assert_array_equal(np.asarray(got_words),
                                   np.asarray(want_words))
     np.testing.assert_array_equal(np.asarray(got_counts)[:qi],
                                   np.asarray(want_counts)[:qi])
 
 
-def test_densify_rows_matches_xla():
-    """Mosaic densify kernel vs the XLA gather+scatter formulation
-    (interpret mode): identical [K, PW] rows for ragged partition-major
-    segments, including empty segments, multi-chunk segments, and the
-    aligned-window over-read at the stream tail."""
-    import jax
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("n_chunks", [1, 3, 7, 64])
+def test_chunk_bounds_on_query_boundaries(n_chunks):
+    """Every bound is a query start (0 or just after an EMIT_COUNT) or the
+    end; bounds never decrease; the last chunk holds the last query."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
+    from lapis_silo_tpu.ops import vm_kernel
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(7)
-    K, P = 5, 3
-    n_words = 12 * 128          # per-leaf global row width
-    wp = n_words // P           # per-partition word window
-    n_seg = K * P
-    lens = rng.integers(0, 2500, size=n_seg).astype(np.int32)
-    lens[4] = 0                 # explicit empty segment
-    lens = np.minimum(lens, wp)
-    starts = np.zeros(n_seg, np.int32)
-    pos = 0
-    entries_idx, entries_wrd = [], []
-    for g in range(n_seg):
-        pi = g % P
-        starts[g] = pos
-        w = np.sort(rng.choice(wp, size=lens[g], replace=False)).astype(
-            np.int32) + pi * wp
-        entries_idx.append(w)
-        entries_wrd.append(
-            rng.integers(1, 2**32, size=lens[g], dtype=np.uint32))
-        pos += lens[g]
-    n_pad = (-(-(pos + pk.DENSIFY_WINDOW) // pk.COMBINE_BLOCK)
-             * pk.COMBINE_BLOCK)
-    idx_np = np.zeros(n_pad, np.int32)
-    wrd_np = np.zeros(n_pad, np.uint32)
-    idx_np[:pos] = np.concatenate(entries_idx)
-    wrd_np[:pos] = np.concatenate(entries_wrd)
-
-    comb = jnp.asarray(pk.combine_stream(idx_np, wrd_np))
-    sd, ld = jnp.asarray(starts), jnp.asarray(lens)
-    got = np.asarray(pk.densify_rows(comb, sd, ld, K, n_words,
-                                     interpret=True))
-    e_bucket = 1 << 13
-    want = np.asarray(jax.jit(lambda *a: de._densify_one(
-        K, e_bucket, n_words, P, *a))(comb, sd, ld))
-    np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(n_chunks)
+    ops, opers, specs = [], [], []
+    for q in range(20):
+        for _ in range(int(rng.integers(1, 5))):
+            ops.append(de.ALU)
+            opers.append(0)
+            specs.append(de.M_MOVB << 24 | de.B_FULL << 28)
+        ops.append(de.EMIT_COUNT)
+        opers.append(q)
+        specs.append(de.NO_DST)
+    n = de._round_instr(len(ops))
+    code = de.pack_code_array(256, ops, opers, specs)
+    bounds = np.asarray(vm_kernel.chunk_bounds(jnp.asarray(code[1]),
+                                               jnp.int32(n), n_chunks))
+    starts = {0} | {i + 1 for i, op in enumerate(ops)
+                    if op == de.EMIT_COUNT}
+    assert bounds.shape == (n_chunks + 1,)
+    assert bounds[0] == 0 and bounds[-1] == n
+    assert (np.diff(bounds) >= 0).all()
+    assert all(int(b) in starts or b == n for b in bounds)
+    assert bounds[-2] < n  # the last chunk is never empty
 
 
-def test_densify_mxu_scatter_matches_oracle(monkeypatch):
-    """The matmul-scatter densify path (one-hot A @ C per 128-entry window
-    row) must be bit-exact vs a numpy scatter oracle AND vs the per-entry
-    kernel, across dense clusters (matmul rows), wide spans (per-entry
-    fallback rows), partial rows, multi-chunk segments, and empty
-    segments. Needs n_words//128 >= MXU_SPAN to activate."""
-    import jax.numpy as jnp
+def test_vm_wrapper_rejects_unaligned_words(vm_kernel_reference):
+    from lapis_silo_tpu.ops import device_engine as de
 
-    from lapis_silo_tpu.ops import pallas_kernels as pk
+    pw = 2050
+    code = jnp.asarray(de.pack_code_array(16, [], [], []))
+    zeros = jnp.zeros((1, pw), jnp.uint32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        vm_kernel_reference.vm_run(code, jnp.int32(0), zeros, zeros, zeros,
+                                   zeros[0], n_regs=4, split=False)
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(23)
-    n_words = 128 * 256  # hi = 256 >= MXU_SPAN, wide spans fall back
-    n_k, n_per_leaf = 3, 2
-    segments = []
-    for seg in range(n_k * n_per_leaf):
-        kind = seg % 4
-        if kind == 0:      # dense cluster: one matmul row, tiny span
-            base = int(rng.integers(0, n_words - 700))
-            idx = np.sort(rng.choice(600, size=180, replace=False)) + base
-        elif kind == 1:    # wide span: every window row falls back
-            idx = np.sort(rng.choice(n_words, size=150, replace=False))
-        elif kind == 2:    # multi-chunk (len > 1024), mixed density
-            idx = np.sort(rng.choice(n_words, size=1400, replace=False))
-        else:              # empty segment
-            idx = np.array([], dtype=np.int64)
-        segments.append(idx.astype(np.int32))
+
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_engine_pads_words_to_kernel_quantum(n_dev):
+    """Each device's share of the flat word axis is a whole number of the
+    kernel's 4-word vectors."""
+    from lapis_silo_tpu.ops import vm_kernel
+    from lapis_silo_tpu.ops.device_engine import DeviceEngine
+    from lapis_silo_tpu.testing import synthetic_database
+
+    if len(jax.devices()) < n_dev:
+        pytest.skip("needs the virtual multi-device mesh")
+    db = synthetic_database(n_rows=97, length=64, n_partitions=3)
+    engine = DeviceEngine(db, devices=jax.devices()[:n_dev])
+    assert engine.n_words % (vm_kernel.WORD_QUANTUM * n_dev) == 0
+    assert (engine.n_flat_words // n_dev) % vm_kernel.WORD_QUANTUM == 0
+
+
+@pytest.mark.parametrize("platform,want", [("gpu", "kernel"), ("cpu", "xla"),
+                                           ("rocm", None)])
+def test_vm_path_platform_choice(monkeypatch, platform, want):
+    from lapis_silo_tpu.ops import vm
+
+    class FakeDevice:
+        pass
+
+    dev = FakeDevice()
+    dev.platform = platform
+    monkeypatch.setattr(vm.jax, "devices", lambda: [dev])
+    if want is None:
+        with pytest.raises(RuntimeError, match="no device path"):
+            vm.vm_path()
+    else:
+        assert vm.vm_path() == want
+
+
+def test_vm_run_sharded_matches_single_device(vm_kernel_reference):
+    """The kernel wrapper under shard_map over the 8-device CPU mesh:
+    word-sharded bank/dyn/sparse/full, psum-merged EMIT counts — must be
+    bit-identical to the single-device wrapper and the XLA interpreter."""
+    from lapis_silo_tpu.ops import device_engine as de
+    from lapis_silo_tpu.parallel.mesh import make_mesh
+
+    if len(jax.devices()) < 2:
+        pytest.skip("needs the virtual multi-device mesh")
+    mesh = make_mesh()
+    n_dev = mesh.devices.size
+    pw = n_dev * 2 * 128
+    rng, bank, dyn, sparse, full = _vm_inputs(11, pw, n_rows=12, n_dyn=2,
+                                              n_k=3)
+    n_regs = 8
+    ops, opers, specs, qi = _random_program(rng, 12, 2, 3, n_regs, 10, 0.5)
+    code = jnp.asarray(de.pack_code_array(64, ops, opers, specs))
+    ni = jnp.int32(de._round_instr(len(ops)))
+    args = (jnp.asarray(bank), jnp.asarray(dyn), jnp.asarray(sparse),
+            jnp.asarray(full))
+    want_words, want_counts = vm_kernel_reference.vm_run(
+        code, ni, *args, n_regs=n_regs, split=False)
+    got_words, got_counts = vm_kernel_reference.vm_run_sharded(
+        mesh, code, ni, *args, n_regs=n_regs, split=False)
+    np.testing.assert_array_equal(np.asarray(got_words),
+                                  np.asarray(want_words))
+    np.testing.assert_array_equal(np.asarray(got_counts)[:qi],
+                                  np.asarray(want_counts)[:qi])
+    run = de.build_run_one_with_emit(64, 12, 2, pw, n_sparse_k=3,
+                                     n_regs=n_regs)
+    xla_words, xla_counts = jax.jit(run)(code, *args, ni)
+    np.testing.assert_array_equal(np.asarray(got_words),
+                                  np.asarray(xla_words))
+    np.testing.assert_array_equal(np.asarray(got_counts)[:qi],
+                                  np.asarray(xla_counts)[:qi])
+
+
+@pytest.mark.gpu
+def test_cuda_vm_kernel_matches_xla(gpu_device):
+    """The compiled CUDA kernel vs the XLA interpreter, split and unsplit,
+    on a word axis that does not fill the last tile."""
+    from lapis_silo_tpu.ops import device_engine as de
+    from lapis_silo_tpu.ops import vm_kernel
+
+    vm_kernel.ensure_registered()
+    pw = 4 * 1000
+    rng, bank, dyn, sparse, full = _vm_inputs(17, pw)
+    ops, opers, specs, qi = _random_program(rng, 24, 3, 5, 8, 40, 0.3)
+    code = jnp.asarray(de.pack_code_array(256, ops, opers, specs))
+    ni = jnp.int32(de._round_instr(len(ops)))
+    args = tuple(jnp.asarray(a) for a in (bank, dyn, sparse, full))
+    got_words, got_counts = jax.jit(
+        lambda c, n, *a: vm_kernel.vm_run(c, n, *a, n_regs=8, split=False)
+    )(code, ni, *args)
+    run = de.build_run_one_with_emit(256, 24, 3, pw, n_sparse_k=5, n_regs=8)
+    want_words, want_counts = jax.jit(run)(code, *args, ni)
+    np.testing.assert_array_equal(np.asarray(got_words),
+                                  np.asarray(want_words))
+    np.testing.assert_array_equal(np.asarray(got_counts)[:qi],
+                                  np.asarray(want_counts)[:qi])
+
+
+# -- sparse densify (vm._densify_one) and the pool update -----------------
+
+
+def _stream(segments, rng):
+    """Combined stream + (starts, lens) for a list of per-segment sorted
+    word-index arrays."""
+    from lapis_silo_tpu.ops import sparse_stream as ss
+
     lens = np.array([len(s) for s in segments], dtype=np.int32)
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
-    idx_flat = np.concatenate([s for s in segments]).astype(np.int32)
-    words_flat = rng.integers(0, 1 << 32, size=idx_flat.shape[0],
-                              dtype=np.uint32)
-    pad = ((-len(idx_flat)) % pk.DENSIFY_WINDOW) + pk.DENSIFY_WINDOW
-    idx_flat = np.concatenate([idx_flat, np.zeros(pad, np.int32)])
-    words_flat = np.concatenate([words_flat, np.zeros(pad, np.uint32)])
+    idx = (np.concatenate(segments).astype(np.int32) if len(segments)
+           else np.zeros(0, np.int32))
+    words = rng.integers(1, 1 << 32, size=idx.shape[0], dtype=np.uint32)
+    n_pad = -(-max(len(idx), 1) // ss.COMBINE_BLOCK) * ss.COMBINE_BLOCK
+    idx_p = np.zeros(n_pad, np.int32)
+    wrd_p = np.zeros(n_pad, np.uint32)
+    idx_p[: len(idx)] = idx
+    wrd_p[: len(words)] = words
+    return ss.combine_stream(idx_p, wrd_p), starts, lens, idx, words
 
-    want = np.zeros((n_k, n_words), dtype=np.uint32)
-    for seg, idx in enumerate(segments):
-        leaf = seg // n_per_leaf
-        s = starts[seg]
-        want[leaf, idx] |= words_flat[s : s + len(idx)]
 
-    comb = jnp.asarray(pk.combine_stream(idx_flat, words_flat))
-    monkeypatch.setenv("SILO_DENSIFY_MXU", "1")
-    got = np.asarray(pk.densify_rows(
-        comb, jnp.asarray(starts), jnp.asarray(lens), n_k, n_words,
-        interpret=True))
+def _segments(kind, rng, n_seg, n_per_leaf, n_words):
+    wp = n_words // n_per_leaf
+    out = []
+    for g in range(n_seg):
+        pi = g % n_per_leaf
+        if kind == "ragged":
+            n = int(rng.integers(0, min(2500, wp)))
+        elif kind == "multi_block":
+            n = min(1400, wp) if g % 2 else 0
+        elif kind == "clustered":
+            n = min(180, wp // 4)
+        else:  # "sparse_wide"
+            n = 2
+        if kind == "clustered":
+            width = wp // 2
+            base = int(rng.integers(0, wp - width))
+            w = np.sort(rng.choice(width, size=n, replace=False)) + base
+        else:
+            w = np.sort(rng.choice(wp, size=n, replace=False))
+        out.append((w + pi * wp).astype(np.int32))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ragged", "multi_block", "clustered",
+                                  "sparse_wide"])
+def test_densify_rows_matches_xla(kind):
+    """vm._densify_one vs a numpy scatter oracle: ragged partition-major
+    segments, empty segments, segments longer than a stream block,
+    clustered and widely spread word indices."""
+    from lapis_silo_tpu.ops import vm
+
+    rng = np.random.default_rng(7)
+    k, p = 5, 3
+    n_words = 12 * 128
+    segments = _segments(kind, rng, k * p, p, n_words)
+    comb, starts, lens, idx, words = _stream(segments, rng)
+    want = np.zeros((k, n_words), dtype=np.uint32)
+    for g, s in enumerate(segments):
+        want[g // p, s] = words[starts[g] : starts[g] + lens[g]]
+    e_bucket = 1 << int(max(lens.sum(), 1) - 1).bit_length()
+    got = np.asarray(jax.jit(lambda *a: vm._densify_one(
+        k, e_bucket, n_words, p, *a))(jnp.asarray(comb),
+                                      jnp.asarray(starts),
+                                      jnp.asarray(lens)))
     np.testing.assert_array_equal(got, want)
 
-    monkeypatch.setenv("SILO_DENSIFY_MXU", "0")
-    got_scalar = np.asarray(pk.densify_rows(
-        comb, jnp.asarray(starts), jnp.asarray(lens), n_k, n_words,
-        interpret=True))
-    np.testing.assert_array_equal(got_scalar, want)
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_densify_window_local_matches_global(n_dev):
+    """The mesh form (w_off, local_words) writes exactly each device's
+    slice of the global rows."""
+    from lapis_silo_tpu.ops import vm
+
+    rng = np.random.default_rng(n_dev)
+    k, p, n_words = 4, 2, 8 * 128
+    segments = _segments("ragged", rng, k * p, p, n_words)
+    comb, starts, lens, _idx, _words = _stream(segments, rng)
+    e_bucket = 1 << 13
+    args = (jnp.asarray(comb), jnp.asarray(starts), jnp.asarray(lens))
+    full_rows = np.asarray(vm._densify_one(k, e_bucket, n_words, p, *args))
+    local = n_words // n_dev
+    for d in range(n_dev):
+        part = np.asarray(vm._densify_one(k, e_bucket, n_words, p, *args,
+                                          w_off=d * local,
+                                          local_words=local))
+        np.testing.assert_array_equal(part,
+                                      full_rows[:, d * local:(d + 1) * local])
+
+
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_pool_update_writes_slots(n_dev):
+    """_pool_update_jit densifies the listed leaves into their pool slots
+    with .at[slots].set — other slots keep their contents, padded ids land
+    in the scratch row — single device and word-sharded mesh."""
+    from lapis_silo_tpu.ops import vm
+
+    if len(jax.devices()) < n_dev:
+        pytest.skip("needs the virtual multi-device mesh")
+    rng = np.random.default_rng(3)
+    n_leaves, p, n_words = 6, 2, 8 * 128
+    segments = _segments("ragged", rng, n_leaves * p, p, n_words)
+    comb, starts, lens, _idx, _words = _stream(segments, rng)
+    bounds = np.zeros((n_leaves + 1, 2, p), np.int32)
+    bounds[:n_leaves, 0] = starts.reshape(n_leaves, p)
+    bounds[:n_leaves, 1] = lens.reshape(n_leaves, p)
+    leaves = np.asarray(vm._densify_one(n_leaves, 1 << 14, n_words, p,
+                                        jnp.asarray(comb),
+                                        jnp.asarray(starts),
+                                        jnp.asarray(lens)))
+    n_slots = 8
+    pool0 = rng.integers(0, 1 << 32, size=(n_slots + 1, n_words),
+                         dtype=np.uint32)
+    k_bucket = 4
+    ids, slots = [4, 1, 5], [6, 0, 3]
+    blob = np.full(2 * k_bucket, n_leaves, np.int32)
+    blob[: len(ids)] = ids
+    blob[k_bucket:] = n_slots
+    blob[k_bucket : k_bucket + len(slots)] = slots
+    mesh = None
+    pool = jnp.asarray(pool0)
+    if n_dev > 1:
+        from jax.sharding import NamedSharding, PartitionSpec
+        from lapis_silo_tpu.parallel.mesh import make_mesh
+
+        mesh = make_mesh()
+        pool = jax.device_put(pool0, NamedSharding(
+            mesh, PartitionSpec(None, "seq")))
+    run = vm._pool_update_jit(k_bucket, p, n_words, mesh, 1 << 14)
+    got = np.asarray(run(pool, jnp.asarray(comb), jnp.asarray(bounds),
+                         jnp.asarray(blob)))
+    want = pool0.copy()
+    for leaf, slot in zip(ids, slots):
+        want[slot] = leaves[leaf]
+    want[n_slots] = 0  # the padded id's empty leaf lands in scratch
+    np.testing.assert_array_equal(got, want)
 
 
 def test_combine_stream_numpy_jnp_parity():
     """combine_stream's numpy (engine init) and jnp (in-jit) branches
     must produce identical block-interleaved bytes, and the documented
     entry->row mapping must hold."""
-    import jax.numpy as jnp
-
-    from lapis_silo_tpu.ops import pallas_kernels as pk
+    from lapis_silo_tpu.ops import sparse_stream as ss
 
     rng = np.random.default_rng(3)
-    e = 2 * pk.COMBINE_BLOCK
+    e = 2 * ss.COMBINE_BLOCK
     idx = rng.integers(0, 1 << 20, size=e).astype(np.int32)
     words = rng.integers(0, 1 << 32, size=e, dtype=np.uint32)
-    a = pk.combine_stream(idx, words)
-    b = np.asarray(pk.combine_stream(jnp.asarray(idx), jnp.asarray(words)))
+    a = ss.combine_stream(idx, words)
+    b = np.asarray(ss.combine_stream(jnp.asarray(idx), jnp.asarray(words)))
     np.testing.assert_array_equal(a, b)
     assert a.shape == (e // 64, 128)
-    for p in [0, 1, 127, 128, 1023, 1024, 1025, e - 1]:
-        row = (p >> 10) * 16 + ((p >> 7) & 7)
-        assert a[row, p & 127] == np.uint32(idx[p])
-        assert a[row + 8, p & 127] == words[p]
+    for pos in [0, 1, 127, 128, 1023, 1024, 1025, e - 1]:
+        row = ss.comb_idx_row(pos)
+        assert a[row, pos & 127] == np.uint32(idx[pos])
+        assert a[row + ss.COMBINE_WORD_ROW_OFF, pos & 127] == words[pos]
+    got_idx, got_words = ss.split_stream(a)
+    np.testing.assert_array_equal(got_idx, idx)
+    np.testing.assert_array_equal(got_words, words)
 
 
-def test_densify_bounded_matches_oracle():
-    """The BOUNDED densify path (per-partition precomputed MXU tile base,
-    no SMEM idx window, no per-row span reads) must be bit-exact vs the
-    numpy oracle AND vs the span-checked kernel on an engine-layout
-    stream (uniform partition word windows, seg = leaf * P + pi)."""
-    import jax.numpy as jnp
-
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    rng = np.random.default_rng(41)
-    P = 8
-    n_words = 128 * 512          # hi = 512; W = 8192 words = 64 hi rows
-    wp = n_words // P
-    h0 = pk.bounded_part_h0(P, n_words)
-    assert h0 is not None and h0.shape == (P,)
-    # production shape sanity: 10M x 32 qualifies
-    assert pk.bounded_part_h0(32, 327680) is not None
-    # whole-space single segment does NOT (span > MXU_SPAN)
-    assert pk.bounded_part_h0(1, n_words) is None
-
-    K = 4
-    n_seg = K * P
-    lens = rng.integers(0, 300, size=n_seg).astype(np.int32)
-    lens[3] = 0                  # empty segment
-    lens[7] = 1400               # multi-chunk segment
-    lens = np.minimum(lens, wp)
-    starts = np.zeros(n_seg, np.int32)
-    pos = 0
-    e_idx, e_wrd = [], []
-    for g in range(n_seg):
-        pi = g % P
-        starts[g] = pos
-        w = np.sort(rng.choice(wp, size=lens[g], replace=False)).astype(
-            np.int32) + pi * wp
-        e_idx.append(w)
-        e_wrd.append(rng.integers(1, 2**32, size=lens[g], dtype=np.uint32))
-        pos += lens[g]
-    pad = ((-pos) % pk.DENSIFY_WINDOW) + pk.DENSIFY_WINDOW
-    idx_np = np.concatenate(e_idx + [np.zeros(pad, np.int32)])
-    wrd_np = np.concatenate(e_wrd + [np.zeros(pad, np.uint32)])
-
-    want = np.zeros((K, n_words), dtype=np.uint32)
-    for g in range(n_seg):
-        want[g // P, e_idx[g]] |= e_wrd[g]
-
-    args = (jnp.asarray(pk.combine_stream(idx_np, wrd_np)),
-            jnp.asarray(starts), jnp.asarray(lens), K, n_words)
-    got_bounded = np.asarray(pk.densify_rows(*args, interpret=True,
-                                             part_h0=h0))
-    np.testing.assert_array_equal(got_bounded, want)
-    got_checked = np.asarray(pk.densify_rows(*args, interpret=True))
-    np.testing.assert_array_equal(got_checked, want)
+# -- Mutations reductions -------------------------------------------------
 
 
-def test_densify_mxu_alignment_gap_regression():
-    """Regression: a window row whose raw hi-span fits MXU_SPAN but whose
-    8-ALIGNED span does not (span in [MXU_SPAN-7, MXU_SPAN-1], misaligned
-    start) must take the per-entry fallback — the original condition pair
-    tested different bases (last-first vs last-h0a) and silently dropped
-    such rows' entries."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("start,n_seg", [(0, 32), (5, 7), (17, 1), (3, 29)])
+def test_mutation_counts_jit_at_offsets(start, n_seg):
+    """_mutation_counts_jit: popcount(bank[start:start+n] & filter) per row
+    at any row offset and segment length."""
+    from lapis_silo_tpu.ops.reductions import _mutation_counts_jit
 
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    n_words = 128 * 256
-    # two entries: hi rows 9 and 136 -> span 128 > raw span... raw span
-    # last-first = 127 < 128 = MXU_SPAN, but h0a = 8 -> last-h0a = 128
-    idx = np.array([9 * 128 + 3, 136 * 128 + 5], dtype=np.int32)
-    words = np.array([0xDEADBEEF, 0x12345678], dtype=np.uint32)
-    starts = np.array([0], dtype=np.int32)
-    lens = np.array([2], dtype=np.int32)
-    pad = ((-2) % pk.DENSIFY_WINDOW) + pk.DENSIFY_WINDOW
-    idx_p = np.concatenate([idx, np.zeros(pad, np.int32)])
-    wrd_p = np.concatenate([words, np.zeros(pad, np.uint32)])
-    got = np.asarray(pk.densify_rows(
-        jnp.asarray(pk.combine_stream(idx_p, wrd_p)), jnp.asarray(starts),
-        jnp.asarray(lens), 1, n_words, interpret=True))
-    want = np.zeros((1, n_words), dtype=np.uint32)
-    want[0, idx] = words
+    rng = np.random.default_rng(start * 31 + n_seg)
+    bank = rng.integers(0, 2**32, size=(32, 3 * 1024 + 4), dtype=np.uint32)
+    filters = rng.integers(0, 2**32, size=bank.shape[1], dtype=np.uint32)
+    got = np.asarray(_mutation_counts_jit(jnp.asarray(bank),
+                                          jnp.asarray(filters), start, n_seg))
+    want = (np.bitwise_count(bank[start:start + n_seg] & filters[None, :])
+            .sum(axis=1).astype(np.int32))
     np.testing.assert_array_equal(got, want)
+
+
+def test_mutation_counts_jit_on_mesh():
+    """The same reduction over a bank word-sharded on the 8-device mesh
+    (XLA inserts the cross-device sum)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from lapis_silo_tpu.ops.reductions import _mutation_counts_jit
+    from lapis_silo_tpu.parallel.mesh import make_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the virtual multi-device mesh")
+    mesh = make_mesh()
+    rng = np.random.default_rng(13)
+    bank = rng.integers(0, 2**32, size=(24, 8 * 260), dtype=np.uint32)
+    filters = rng.integers(0, 2**32, size=bank.shape[1], dtype=np.uint32)
+    bank_d = jax.device_put(bank, NamedSharding(mesh,
+                                                PartitionSpec(None, "seq")))
+    filt_d = jax.device_put(filters, NamedSharding(mesh,
+                                                   PartitionSpec("seq")))
+    got = np.asarray(_mutation_counts_jit(bank_d, filt_d, 4, 16))
+    want = (np.bitwise_count(bank[4:20] & filters[None, :])
+            .sum(axis=1).astype(np.int32))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_sparse_mutation_counts_matches_numpy(sharded):
+    """Segmented sparse popcount over the combined stream vs numpy: per
+    leaf, the sum over its partition segments of popcount(word &
+    filter[idx]); the mesh form splits the entry axis and psums."""
+    from lapis_silo_tpu.ops import reductions
+
+    if sharded and len(jax.devices()) < 8:
+        pytest.skip("needs the virtual multi-device mesh")
+    rng = np.random.default_rng(19)
+    k, p, n_words = 7, 4, 16 * 128
+    segments = _segments("ragged", rng, k * p, p, n_words)
+    comb, starts, lens, idx, words = _stream(segments, rng)
+    filters = rng.integers(0, 2**32, size=n_words, dtype=np.uint32)
+    want = np.zeros(k, np.int64)
+    for g in range(k * p):
+        s, n = starts[g], lens[g]
+        want[g // p] += int(np.bitwise_count(
+            words[s:s + n] & filters[idx[s:s + n]]).sum())
+    if sharded:
+        from jax.sharding import NamedSharding, PartitionSpec
+        from lapis_silo_tpu.parallel.mesh import make_mesh
+        from lapis_silo_tpu.ops import sparse_stream as ss
+
+        mesh = make_mesh()
+        n_dev = mesh.devices.size
+        e = comb.shape[0] * 64
+        e_pad = -(-e // (ss.COMBINE_BLOCK * n_dev)) * ss.COMBINE_BLOCK * n_dev
+        idx_p, wrd_p = ss.split_stream(comb)
+        idx_p = np.concatenate([idx_p, np.zeros(e_pad - e, np.int32)])
+        wrd_p = np.concatenate([wrd_p, np.zeros(e_pad - e, np.uint32)])
+        comb = ss.combine_stream(idx_p, wrd_p)
+        run = reductions._sparse_mutation_counts_sharded_jit(mesh, p)
+        got = run(jnp.asarray(comb),
+                  jax.device_put(filters, NamedSharding(
+                      mesh, PartitionSpec("seq"))),
+                  jnp.asarray(starts), jnp.asarray(lens))
+    else:
+        got = reductions._sparse_mutation_counts_jit(
+            jnp.asarray(comb), jnp.asarray(filters), jnp.asarray(starts),
+            jnp.asarray(lens), p)
+    np.testing.assert_array_equal(np.asarray(got, dtype=np.int64), want)

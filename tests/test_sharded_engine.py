@@ -60,20 +60,17 @@ def test_sharded_engine_sparse_tier_matches_single_device():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_pool_and_sparse_mutations_kernel(monkeypatch):
-    """Round-5 mesh scale tier: the hot-leaf pool (word-sharded like the
-    bank, window-local sharded updates, pool-resident VM reads) and the
-    sharded sparse-Mutations reduction (entry-split Mosaic gather kernel +
-    psum) must run on the 8-device mesh — spy-asserted — and stay
-    bit-exact vs the single-device engine."""
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
-    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
+    """Mesh scale tier: the hot-leaf pool (word-sharded like the bank,
+    window-local sharded updates, pool-resident VM reads) and the sharded
+    sparse-Mutations reduction (entry-split XLA gather + psum) must run on
+    the 8-device mesh — spy-asserted — and stay bit-exact vs the
+    single-device engine."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.ops import reductions
     from lapis_silo_tpu.query.engine import Query
     from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
 
-    calls = {"pool_update_mesh": 0, "sparse_gather_kernel": 0}
+    calls = {"pool_update_mesh": 0, "sparse_mutations_sharded": 0}
     real_pool_jit = de._pool_update_jit
 
     def spy_pool_jit(k_bucket, n_partitions, n_words, mesh=None,
@@ -83,136 +80,119 @@ def test_sharded_pool_and_sparse_mutations_kernel(monkeypatch):
         return real_pool_jit(k_bucket, n_partitions, n_words, mesh,
                              e_budget)
 
-    real_gather = pk.sparse_filter_popcount
+    real_sharded = reductions._sparse_mutation_counts_sharded_jit
 
-    def spy_gather(*args, **kwargs):
-        calls["sparse_gather_kernel"] += 1
-        return real_gather(*args, **kwargs)
+    def spy_sharded(*args, **kwargs):
+        calls["sparse_mutations_sharded"] += 1
+        return real_sharded(*args, **kwargs)
 
     monkeypatch.setattr(de, "_pool_update_jit", spy_pool_jit)
-    monkeypatch.setattr(pk, "sparse_filter_popcount", spy_gather)
-    de._interpreter.cache_clear()
-    reductions._sparse_mutation_counts_sharded_jit.cache_clear()
-    try:
-        db = synthetic_database(n_rows=2048, length=256, n_partitions=3,
-                                mutations_per_genome=2)
-        single = de.DeviceEngine(db, devices=jax.devices()[:1],
-                                 sparse_min_words=1)
-        sharded = de.DeviceEngine(db, devices=jax.devices()[:8],
-                                  sparse_min_words=1)
-        assert sharded.mesh is not None and sharded.n_sparse > 0
-        assert sharded.pool_slots > 0, "mesh pool must be active"
-        queries = [Query(q) for q in sample_count_queries(db, 12)]
-        batch = [q.filter for q in queries]
-        want = single.count_batch(batch)
-        assert sharded.count_batch(batch) == want
-        assert calls["pool_update_mesh"] > 0, \
-            "sharded pool update never dispatched"
-        misses_after_cold = sharded.pool_misses
-        # repeat: the same leaves must now be pool hits, not re-densified
-        assert sharded.count_batch(batch) == want
-        assert sharded.pool_hits > 0, "no pool-resident reads"
-        assert sharded.pool_misses == misses_after_cold, \
-            "hot leaves re-densified"
-        # sharded sparse-Mutations through the Mosaic gather kernel
-        filt = Query(json.dumps({
-            "action": {"type": "Aggregated"},
-            "filterExpression": {"type": "HasNucleotideMutation",
-                                 "position": 7}})).filter
-        m1 = single.mutation_counts("nuc", "main", single.evaluate(filt))
-        m2 = sharded.mutation_counts("nuc", "main", sharded.evaluate(filt))
-        np.testing.assert_array_equal(m1, m2)
-        assert calls["sparse_gather_kernel"] > 0, \
-            "sharded sparse-Mutations kernel never reached"
-    finally:
-        de._interpreter.cache_clear()
-        reductions._sparse_mutation_counts_sharded_jit.cache_clear()
-        de.vm._pool_update_jit.cache_clear()
+    monkeypatch.setattr(reductions, "_sparse_mutation_counts_sharded_jit",
+                        spy_sharded)
+    db = synthetic_database(n_rows=2048, length=256, n_partitions=3,
+                            mutations_per_genome=2)
+    single = de.DeviceEngine(db, devices=jax.devices()[:1],
+                             sparse_min_words=1)
+    sharded = de.DeviceEngine(db, devices=jax.devices()[:8],
+                              sparse_min_words=1)
+    assert sharded.mesh is not None and sharded.n_sparse > 0
+    assert sharded.pool_slots > 0, "mesh pool must be active"
+    queries = [Query(q) for q in sample_count_queries(db, 12)]
+    batch = [q.filter for q in queries]
+    want = single.count_batch(batch)
+    assert sharded.count_batch(batch) == want
+    assert calls["pool_update_mesh"] > 0, \
+        "sharded pool update never dispatched"
+    misses_after_cold = sharded.pool_misses
+    # repeat: the same leaves must now be pool hits, not re-densified
+    assert sharded.count_batch(batch) == want
+    assert sharded.pool_hits > 0, "no pool-resident reads"
+    assert sharded.pool_misses == misses_after_cold, \
+        "hot leaves re-densified"
+    filt = Query(json.dumps({
+        "action": {"type": "Aggregated"},
+        "filterExpression": {"type": "HasNucleotideMutation",
+                             "position": 7}})).filter
+    m1 = single.mutation_counts("nuc", "main", single.evaluate(filt))
+    m2 = sharded.mutation_counts("nuc", "main", sharded.evaluate(filt))
+    np.testing.assert_array_equal(m1, m2)
+    assert calls["sparse_mutations_sharded"] > 0, \
+        "sharded sparse-Mutations reduction never reached"
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_sharded_engine_kernel_path_matches_xla(monkeypatch):
-    """The mesh engine with the Mosaic kernel paths FORCED (bank3 +
-    interpret-mode pallas under shard_map — the configuration a real
-    multi-chip TPU runs) must stay bit-identical to the plain XLA mesh
-    engine and the single-device engine."""
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
-    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
-    from lapis_silo_tpu.ops.device_engine import DeviceEngine
-    from lapis_silo_tpu.query.engine import Query
-    from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
-
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-
-    calls = {"sharded": 0}
-    real = pk.vm_run_sharded
-
-    def spy(*args, **kwargs):
-        calls["sharded"] += 1
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(pk, "vm_run_sharded", spy)
-    # a fresh interpreter cache: cached closures may hold the un-spied fn
-    # and gates evaluated under different env values
-    from lapis_silo_tpu.ops import device_engine as de
-    de._interpreter.cache_clear()
-
-    db = synthetic_database(n_rows=2048, length=256, n_partitions=3)
-    kernel = DeviceEngine(db, devices=jax.devices()[:8])
-    assert kernel.mesh is not None and kernel.bank3
-    assert kernel.bank.ndim == 3
-    # reference values from the HOST oracle (env-independent)
+def _oracle_count(db, filter_expr):
     from lapis_silo_tpu.ops import bitset
     from lapis_silo_tpu.query import ast
     from lapis_silo_tpu.query.ir import HostEvaluator
 
-    def oracle_count(filter_expr):
-        total = 0
-        db.uniform_compile = True
-        try:
-            for partition in db.partitions:
-                node = filter_expr.compile(db, partition, ast.NONE)
-                total += int(bitset.popcount(
-                    HostEvaluator(partition.sequence_count).evaluate(node)))
-        finally:
-            db.uniform_compile = False
-        return total
-
-    queries = [Query(q) for q in sample_count_queries(db, 12)]
-    batch = [q.filter for q in queries]
-    got = kernel.count_batch(batch)
-    want = [oracle_count(f) for f in batch]
-    assert got == want
-    assert calls["sharded"] > 0, "vm_run_sharded was never reached"
-    de._interpreter.cache_clear()  # drop closures over the spy/env
+    total = 0
+    db.uniform_compile = True
+    try:
+        for partition in db.partitions:
+            node = filter_expr.compile(db, partition, ast.NONE)
+            total += int(bitset.popcount(
+                HostEvaluator(partition.sequence_count).evaluate(node)))
+    finally:
+        db.uniform_compile = False
+    return total
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_conformance_corpus_through_vm_run_sharded(example_dataset_db,
-                                                   monkeypatch):
-    """End-to-end conformance sample on the FORCED multi-chip Mosaic path:
-    the exampleDataset corpus executed with bank3 + interpret-mode pallas
-    under shard_map over the 8-device mesh (the configuration a real pod
-    runs) must produce the reference's exact expected responses."""
-    import os
-
-    from .test_conformance import QUERIES_DIR, deep_equal
-
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
-    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
-    from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
-    from lapis_silo_tpu.query.engine import QueryEngine
+@pytest.mark.parametrize("sparse", [False, True])
+def test_sharded_engine_kernel_path_matches_xla(vm_kernel_reference,
+                                                monkeypatch, sparse):
+    """The mesh engine on the GPU path (the VM kernel's wrapper under
+    shard_map, the kernel replaced by its jnp reference) must match the
+    host oracle bit for bit — dense, and two-tier with the pool."""
+    from lapis_silo_tpu.ops.device_engine import DeviceEngine
+    from lapis_silo_tpu.query.engine import Query
+    from lapis_silo_tpu.testing import sample_count_queries, synthetic_database
 
     calls = {"sharded": 0}
-    real = pk.vm_run_sharded
+    real = vm_kernel_reference.vm_run_sharded
 
     def spy(*args, **kwargs):
         calls["sharded"] += 1
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(pk, "vm_run_sharded", spy)
-    de._interpreter.cache_clear()
+    monkeypatch.setattr(vm_kernel_reference, "vm_run_sharded", spy)
+    db = synthetic_database(n_rows=2048, length=256, n_partitions=3,
+                            mutations_per_genome=2 if sparse else 30)
+    kernel = DeviceEngine(db, devices=jax.devices()[:8],
+                          sparse_min_words=1 if sparse else None)
+    assert kernel.mesh is not None and kernel.bank.ndim == 2
+    assert (kernel.n_sparse > 0) == sparse
+    queries = [Query(q) for q in sample_count_queries(db, 12)]
+    batch = [q.filter for q in queries]
+    want = [_oracle_count(db, f) for f in batch]
+    assert kernel.count_batch(batch) == want
+    assert kernel.count_batch(batch) == want  # pool-resident repeat
+    assert calls["sharded"] > 0, "vm_run_sharded was never reached"
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+def test_conformance_corpus_through_vm_run_sharded(example_dataset_db,
+                                                   vm_kernel_reference,
+                                                   monkeypatch):
+    """End-to-end conformance sample on the GPU path's mesh form: the
+    exampleDataset corpus executed through the VM kernel wrapper under
+    shard_map over the 8-device mesh (kernel replaced by its reference)
+    must produce the reference's exact expected responses."""
+    import os
+
+    from .test_conformance import QUERIES_DIR, deep_equal
+
+    from lapis_silo_tpu.ops import device_engine as de
+    from lapis_silo_tpu.query.engine import QueryEngine
+
+    calls = {"sharded": 0}
+    real = vm_kernel_reference.vm_run_sharded
+
+    def spy(*args, **kwargs):
+        calls["sharded"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(vm_kernel_reference, "vm_run_sharded", spy)
     db = example_dataset_db
     saved_engine = db._engine
     saved_device_engine = getattr(db, "device_engine", None)
@@ -220,11 +200,9 @@ def test_conformance_corpus_through_vm_run_sharded(example_dataset_db,
         db._engine = None
         engine = QueryEngine(db)
         kernel_engine = de.DeviceEngine(db, devices=jax.devices()[:8])
-        assert kernel_engine.mesh is not None and kernel_engine.bank3
+        assert kernel_engine.mesh is not None
         engine._device_engine = kernel_engine
         db.device_engine = kernel_engine
-        # a corpus sample spanning every action family (interpret-mode
-        # pallas is slow — the full 94 run on the default path already)
         sample = [
             "And.json", "nOf_2of3_aggregated.json", "HasAAMutation.json",
             "nOf_2of3_mutations.json", "sequenceStartEndMutations.json",
@@ -247,4 +225,3 @@ def test_conformance_corpus_through_vm_run_sharded(example_dataset_db,
     finally:
         db._engine = saved_engine
         db.device_engine = saved_device_engine
-        de._interpreter.cache_clear()

@@ -98,7 +98,7 @@ def test_sparse_tier_memory_is_smaller(sparse_engine, dense_engine):
 def test_sparse_gate_uses_total_row_footprint():
     """The tier activates on partitions x words (a bank row's total bytes),
     so a 16-partition corpus is judged like the single-partition corpus of
-    the same size (device_engine.py sparse_min_words / SPARSE_BANK_BUDGET_GB)."""
+    the same size (device_engine.py sparse_min_words / DENSE_BANK_SHARE)."""
     from lapis_silo_tpu.ops.device_engine import DeviceEngine
     from lapis_silo_tpu.testing import synthetic_database
 
@@ -111,52 +111,31 @@ def test_sparse_gate_uses_total_row_footprint():
 
 
 def test_sparse_kernel_path_matches_dense(example_dataset_db, dense_engine,
-                                          monkeypatch):
-    """The FULL kernel configuration a real TPU runs for sparse corpora —
-    Mosaic densify (densify_rows) feeding the Mosaic VM (vm_run), both in
-    interpret mode — must be bit-identical to the plain dense engine. A
-    call spy proves the densify kernel actually ran."""
+                                          vm_kernel_reference):
+    """The GPU configuration for sparse corpora — the XLA densify feeding
+    the VM kernel's wrapper (kernel replaced by its reference) — must be
+    bit-identical to the plain dense engine."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.query.engine import Query
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
-    calls = {"densify": 0}
-    real = pk.densify_rows
-
-    def spy(*args, **kwargs):
-        calls["densify"] += 1
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(pk, "densify_rows", spy)
     import jax
 
-    de._interpreter.cache_clear()
     engine = de.DeviceEngine(example_dataset_db, sparse_min_words=1,
                              devices=jax.devices()[:1])
-    assert engine.n_sparse > 0 and engine.bank3 and engine.mesh is None
+    assert engine.n_sparse > 0 and engine.mesh is None
 
     queries = [Query(json.dumps({"filterExpression": f,
                                  "action": {"type": "Aggregated"}}))
                for f in FILTERS]
     batch = [q.filter for q in queries]
-    got = engine.count_batch(batch)
-    want = dense_engine.count_batch(batch)
-    assert got == want
-    assert calls["densify"] > 0, "densify kernel was never reached"
-    de._interpreter.cache_clear()  # drop closures over the spy/env
+    assert engine.count_batch(batch) == dense_engine.count_batch(batch)
 
 
-def _interpret_pool_engine(example_dataset_db, monkeypatch, budget_slots=None):
+def _pool_engine(example_dataset_db, monkeypatch, budget_slots=None):
     from lapis_silo_tpu.ops import device_engine as de
 
     import jax
 
-    monkeypatch.setenv("SILO_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("SILO_FORCE_BANK3", "1")
     if budget_slots is not None:
         # translate a slot count into the GB knob (row size known post-init
         # only; probe once)
@@ -165,7 +144,6 @@ def _interpret_pool_engine(example_dataset_db, monkeypatch, budget_slots=None):
         row_bytes = 4 * probe.n_flat_words
         monkeypatch.setenv("SILO_LEAF_POOL_GB",
                            repr(budget_slots * row_bytes / 2**30))
-    de._interpreter.cache_clear()
     engine = de.DeviceEngine(example_dataset_db, sparse_min_words=1,
                              devices=jax.devices()[:1])
     assert engine.pool_slots > 0, "leaf pool inactive"
@@ -177,56 +155,36 @@ def test_leaf_pool_caches_across_batches(example_dataset_db, dense_engine,
     """Second identical batch must answer entirely from resident pool rows:
     zero new densify work, bit-identical counts (the dynamic hot-leaf form
     of per-row dense/sparse placement)."""
-    from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.query.engine import Query
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    engine = _interpret_pool_engine(example_dataset_db, monkeypatch)
-    de._pool_update_jit.cache_clear()  # cached jits close over the real fn
-    de.vm._pooled_update_vm_jit.cache_clear()
-    calls = {"densify": 0}
-    real = pk.densify_rows_into_pool
-
-    def spy(*args, **kwargs):
-        calls["densify"] += 1
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(pk, "densify_rows_into_pool", spy)
+    engine = _pool_engine(example_dataset_db, monkeypatch)
     batch = [Query(json.dumps({"filterExpression": f,
                                "action": {"type": "Aggregated"}})).filter
              for f in FILTERS]
     want = dense_engine.count_batch(batch)
     first = engine.count_batch(batch)
     assert first == want
-    assert calls["densify"] > 0, "pool update never ran"
-    after_first = calls["densify"]
+    updates = engine.pool_update_dispatches + engine.pool_fused_chunks
+    assert updates > 0, "pool update never ran"
+    misses = engine.pool_misses
     second = engine.count_batch(batch)
     assert second == want
-    assert calls["densify"] == after_first, "warm batch re-densified"
-    de._interpreter.cache_clear()
-    de._pool_update_jit.cache_clear()  # drop jits closed over the spy
-    de.vm._pooled_update_vm_jit.cache_clear()
+    assert engine.pool_misses == misses, "warm batch missed the pool"
+    assert (engine.pool_update_dispatches + engine.pool_fused_chunks
+            == updates), "warm batch re-densified"
 
 
 def test_pool_update_k_cap_splits_miss_bursts(example_dataset_db,
                                               dense_engine, monkeypatch):
-    """A miss burst wider than the SMEM-derived K cap must split into
-    K-capped update chunks, none padded past the cap's bucket — a
-    4096 x 32-partition update's starts/lens scalar-prefetch operands
-    (2 x 512 KB) exhausted v5e scoped SMEM (RESOURCE_EXHAUSTED). Up to
-    _POOL_CHUNK_BUCKETS[-1] chunks fuse into the VM dispatch; the
-    overflow runs as eager _pool_update_jit dispatches."""
+    """A miss burst wider than the update K cap (the densify-block cap)
+    must split into K-capped update chunks, none padded past the cap's
+    bucket. Up to _POOL_CHUNK_BUCKETS[-1] chunks fuse into the VM
+    dispatch; the overflow runs as eager _pool_update_jit dispatches."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.query.engine import Query
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    engine = _interpret_pool_engine(example_dataset_db, monkeypatch)
-    assert engine._pool_update_k_cap * engine.n_partitions * 4 <= (
-        de._SPARSE_K_SMEM_BYTE_CAP)
+    engine = _pool_engine(example_dataset_db, monkeypatch)
+    assert engine._pool_update_k_cap == engine.max_sparse_k
     engine._pool_update_k_cap = 4  # force splitting with a tiny cap
     engine.max_sparse_k = 1        # poolless route can never win -> pooled
     monkeypatch.setattr(de.vm, "_POOL_CHUNK_BUCKETS", (0, 1))
@@ -268,12 +226,9 @@ def test_pool_scan_resistance(example_dataset_db, dense_engine, monkeypatch):
     survive scan rounds that overflow the pool; the hot re-run misses
     nothing and stays bit-identical."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.query.engine import Query
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    engine = _interpret_pool_engine(example_dataset_db, monkeypatch,
+    engine = _pool_engine(example_dataset_db, monkeypatch,
                                     budget_slots=64)
 
     def filt(f):
@@ -319,12 +274,9 @@ def test_leaf_pool_eviction_stays_correct(example_dataset_db, dense_engine,
     """A pool far smaller than the leaf universe must evict and refill
     without ever answering wrong: cycle query sets that overflow it."""
     from lapis_silo_tpu.ops import device_engine as de
-    from lapis_silo_tpu.ops import pallas_kernels as pk
     from lapis_silo_tpu.query.engine import Query
 
-    if not pk.HAVE_PALLAS:
-        pytest.skip("pallas unavailable")
-    engine = _interpret_pool_engine(example_dataset_db, monkeypatch,
+    engine = _pool_engine(example_dataset_db, monkeypatch,
                                     budget_slots=64)
     assert engine.pool_slots == 64
     rounds = []
@@ -357,7 +309,7 @@ def test_cold_sweep_bypasses_pool(example_dataset_db, dense_engine,
     from lapis_silo_tpu.ops import device_engine as de
     from lapis_silo_tpu.query.engine import Query
 
-    engine = _interpret_pool_engine(example_dataset_db, monkeypatch)
+    engine = _pool_engine(example_dataset_db, monkeypatch)
     engine.max_sparse_k = 4       # tiny cap: 5+ distinct cold leaves trip it
     engine._pool_update_k_cap = 1  # pooled route would cost 1 dispatch/miss
 
